@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from pathtracer_tpu.accel.bvh import MAX_PRIM, FlatBVH, build_bvh, validate_bvh
+from pathtracer.accel.bvh import MAX_PRIM, FlatBVH, build_bvh, validate_bvh
 
 
 def random_tris(n, seed=0, spread=10.0):

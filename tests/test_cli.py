@@ -6,23 +6,23 @@ import sys
 import numpy as np
 import pytest
 
-from pathtracer_tpu import cli
-from pathtracer_tpu.utils.image_io import read_png
+from pathtracer import cli
+from pathtracer.utils.image_io import read_png
 
 
 class TestCli:
-    def test_info(self, reference_scenes, capsys):
-        rc = cli.main(["info", str(reference_scenes / "cornell.txt")])
+    def test_info(self, scenes_dir, capsys):
+        rc = cli.main(["info", str(scenes_dir / "cornell.txt")])
         assert rc == 0
         out = json.loads(capsys.readouterr().out)
         assert out["geoms"] == 8 and out["lights"] == 1
         assert out["resolution"] == [800, 800]
 
-    def test_render_roundtrip(self, reference_scenes, tmp_path, capsys):
+    def test_render_roundtrip(self, scenes_dir, tmp_path, capsys):
         out = tmp_path / "r.png"
         rc = cli.main(
             [
-                "render", str(reference_scenes / "cornell.txt"),
+                "render", str(scenes_dir / "cornell.txt"),
                 "--cpu", "--res", "32x32", "--spp", "2", "--mode", "mis",
                 "-o", str(out),
             ]
@@ -32,10 +32,10 @@ class TestCli:
         assert img.shape == (32, 32, 3)
         assert img.max() > 0
 
-    def test_bench_json(self, reference_scenes, tmp_path, capsys):
+    def test_bench_json(self, scenes_dir, tmp_path, capsys):
         rc = cli.main(
             [
-                "bench", str(reference_scenes / "cornell.txt"),
+                "bench", str(scenes_dir / "cornell.txt"),
                 "--cpu", "--res", "32x32", "--spp", "2",
             ]
         )
@@ -55,8 +55,8 @@ class TestCli:
 class TestCheckpointGuards:
     def test_swizzle_mismatch_rejected(self, tmp_path):
         import textwrap
-        from pathtracer_tpu.integrator.render import Renderer
-        from pathtracer_tpu.utils.config import RenderOptions, SampleMode
+        from pathtracer.integrator.render import Renderer
+        from pathtracer.utils.config import RenderOptions, SampleMode
         from tests.test_traverse import tri_soup_scene
 
         scene = tri_soup_scene(tmp_path, n=600)  # >=512 tris → swizzle active
@@ -74,8 +74,8 @@ class TestCheckpointGuards:
 
     def test_checkpoint_roundtrip_with_swizzle(self, tmp_path):
         import numpy as np
-        from pathtracer_tpu.integrator.render import Renderer
-        from pathtracer_tpu.utils.config import RenderOptions, SampleMode
+        from pathtracer.integrator.render import Renderer
+        from pathtracer.utils.config import RenderOptions, SampleMode
         from tests.test_traverse import tri_soup_scene
 
         scene = tri_soup_scene(tmp_path, n=600)

@@ -7,15 +7,17 @@ use_mtbvh (single threaded tree), vertex_normal (face normals),
 show_normal (first-hit normal view), max_prim / bucket_num (build knobs).
 """
 
+from pathlib import Path
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from pathtracer_tpu.ops.traverse import FLT_MAX, closest_hit, occlusion_test
-from pathtracer_tpu.scene.flatscene import build_flat_scene
-from pathtracer_tpu.scene.parser import load_scene
-from pathtracer_tpu.utils.config import RenderOptions, SampleMode
+from pathtracer.ops.traverse import FLT_MAX, closest_hit, occlusion_test
+from pathtracer.scene.flatscene import build_flat_scene
+from pathtracer.scene.parser import load_scene
+from pathtracer.utils.config import RenderOptions, SampleMode
 from tests.test_traverse import random_rays, tri_soup_scene
 
 
@@ -91,20 +93,6 @@ class TestBuildFlags:
             np.asarray(h4.t)[hits], np.asarray(h1.t)[hits], rtol=1e-5
         )
 
-    def test_max_prim_wide_kernel_parity(self, soup_scene):
-        """Pallas wide kernels must honor max_prim > 1 leaf spans."""
-        from pathtracer_tpu.ops.traverse_pallas import closest_hit_wbvh_pallas
-
-        flat, static = build_flat_scene(soup_scene, opts=RenderOptions(max_prim=4))
-        o, d = random_rays(512, seed=35)
-        ref = closest_hit(flat, static, o, d)
-        t_init = jnp.full((512,), FLT_MAX, jnp.float32)
-        t, tri, u, v = closest_hit_wbvh_pallas(
-            flat.bvh_wf, flat.bvh_wi, flat.bvh_wp, flat.tri_pk, o, d, t_init,
-            leaf_k=static.wide_leaf_k, interpret=True,
-        )
-        np.testing.assert_array_equal(np.asarray(tri), np.asarray(ref.tri))
-
     def test_vertex_normal_false_uses_face_normals(self, tmp_path):
         # needs an OBJ that actually carries vn lines (the plain soup does
         # not, so both builds would fall back to face normals)
@@ -125,7 +113,7 @@ class TestBuildFlags:
 
 class TestShowNormal:
     def test_show_normal_debug_view(self, tmp_path):
-        from pathtracer_tpu.integrator.render import Renderer
+        from pathtracer.integrator.render import Renderer
 
         path = tri_soup_scene(tmp_path, n=64, seed=6)
         opts = RenderOptions(sample_mode=SampleMode.MIS, show_normal=True,
@@ -145,23 +133,19 @@ class TestShrinkLevels:
     def test_deeper_shrink_is_bit_identical(self):
         """pool_shrink recursion depth must not change output.
 
-        packet_rows=1 makes the shrink tile 128 lanes so a 64x64 pool
-        (4096 lanes) genuinely exercises THREE nested shrink phases
-        (4096 -> 1024 -> 256 -> 128) — at the default tile the deeper
-        levels would never trigger at test resolution (vacuous pass).
-        Straggler-tail scenes (env/textured) default to 3 levels via the
-        packet_auto policy (integrator/render.py); this locks the
-        bit-identity contract that policy relies on.
+        The 128-lane shrink tile lets a 64x64 pool (4096 lanes) exercise
+        THREE nested shrink phases (4096 -> 1024 -> 256 -> 128); this
+        locks the bit-identity contract any shrink_levels setting relies
+        on.
         """
-        from pathtracer_tpu.integrator.render import Renderer
+        from pathtracer.integrator.render import Renderer
 
         imgs = []
         for levels in (0, 2, 3):
             r = Renderer(
-                "scenes/texturecube.txt",
+                str(Path(__file__).resolve().parent.parent / "scenes" / "texturecube.txt"),
                 opts=RenderOptions(
                     sample_mode=SampleMode.MIS, shrink_levels=levels,
-                    packet_rows=1, packet_auto=False,
                 ),
                 resolution=(64, 64),
             )
@@ -176,18 +160,15 @@ class TestShrinkLevels:
         ramps; most lanes die to the void by depth 2) shrink even though
         analytic scenes never sort.  The ladder is a pure reordering —
         RNG keys on lane, contributions ride the ray — so output must be
-        BIT-identical with it on or off.  packet_rows=1 keeps the tile at
-        128 lanes so a 64x64 pool genuinely triggers both levels."""
-        from pathtracer_tpu.integrator.render import Renderer
+        BIT-identical with it on or off.  The 128-lane tile lets a 64x64
+        pool genuinely trigger both levels."""
+        from pathtracer.integrator.render import Renderer
 
         imgs = []
         for shrink in (False, True):
             r = Renderer(
-                "/root/reference/scenes/mis_test.txt",
-                opts=RenderOptions(
-                    sample_mode=SampleMode.MIS, pool_shrink=shrink,
-                    packet_rows=1, packet_auto=False,
-                ),
+                str(Path(__file__).resolve().parent.parent / "scenes" / "mis_test.txt"),
+                opts=RenderOptions(sample_mode=SampleMode.MIS, pool_shrink=shrink),
                 resolution=(64, 64),
             )
             r.step(3)

@@ -1,9 +1,8 @@
-"""Iteration batching (RenderOptions.iters_per_dispatch) + packet-knob
-auto-tune (RenderOptions.packet_auto).
+"""Iteration batching (RenderOptions.iters_per_dispatch).
 
 Batching folds k progressive iterations into one jit dispatch (k
-sequential bounce loops) to hide the remote backend's per-dispatch
-latency; it must be BIT-identical to the one-at-a-time path because the
+sequential bounce loops) to amortize per-dispatch latency; it must be
+BIT-identical to the one-at-a-time path because the
 RNG keys on (iteration, lane) and accumulation is associative-free
 (pure adds of the same values in the same order).
 """
@@ -15,21 +14,21 @@ import pytest
 
 import numpy as np
 
-from pathtracer_tpu.integrator.render import Renderer
-from pathtracer_tpu.utils.config import RenderOptions, SampleMode
+from pathtracer.integrator.render import Renderer
+from pathtracer.utils.config import RenderOptions, SampleMode
 
 REPO_SCENES = Path(__file__).resolve().parent.parent / "scenes"
 
 
-def test_batched_iterations_bit_identical(reference_scenes):
+def test_batched_iterations_bit_identical(scenes_dir):
     base = RenderOptions(sample_mode=SampleMode.MIS)
     r1 = Renderer(
-        str(reference_scenes / "cornell.txt"),
+        str(scenes_dir / "cornell.txt"),
         opts=replace(base, iters_per_dispatch=1),
         resolution=(32, 24), trace_depth=4,
     )
     r2 = Renderer(
-        str(reference_scenes / "cornell.txt"),
+        str(scenes_dir / "cornell.txt"),
         opts=replace(base, iters_per_dispatch=4),
         resolution=(32, 24), trace_depth=4,
     )
@@ -43,30 +42,29 @@ def test_batched_iterations_bit_identical(reference_scenes):
     assert r1.stats.iterations_done == r2.stats.iterations_done == 7
 
 
-@pytest.mark.slow
-def test_batched_mesh_pallas_interpret_bit_identical(tmp_path):
-    """The fused mesh path (Pallas kernels, interpret mode on CPU) must be
-    bit-identical batched vs unbatched too — this is the path TPU mesh
-    scenes take with the auto k=2."""
+def test_batched_mesh_kernel_bit_identical(tmp_path):
+    """The fused mesh path through the traversal kernel (interpret mode on
+    CPU) must be bit-identical batched vs unbatched too — this is the path
+    GPU mesh scenes take with the auto k=2."""
     from tests.test_traverse import tri_soup_scene
 
-    path = tri_soup_scene(tmp_path, n=300, seed=5)
-    base = RenderOptions(sample_mode=SampleMode.MIS, interpret=True)
+    path = tri_soup_scene(tmp_path, n=200, seed=5)
+    base = RenderOptions(sample_mode=SampleMode.MIS, traversal="interpret")
     r1 = Renderer(path, opts=replace(base, iters_per_dispatch=1),
-                  resolution=(32, 16), trace_depth=3)
+                  resolution=(16, 8), trace_depth=2)
     r2 = Renderer(path, opts=replace(base, iters_per_dispatch=2),
-                  resolution=(32, 16), trace_depth=3)
+                  resolution=(16, 8), trace_depth=2)
     assert not r1.staged and not r2.staged
     assert r2._k == 2
-    r1.step(4)
-    r2.step(4)
-    assert r1.iteration == r2.iteration == 4
+    r1.step(3)
+    r2.step(3)
+    assert r1.iteration == r2.iteration == 3
     assert np.array_equal(np.asarray(r1.img), np.asarray(r2.img))
 
 
-def test_auto_k_analytic_vs_mesh(reference_scenes):
+def test_auto_k_analytic_vs_mesh(scenes_dir):
     r = Renderer(
-        str(reference_scenes / "cornell.txt"),
+        str(scenes_dir / "cornell.txt"),
         opts=RenderOptions(), resolution=(16, 16), trace_depth=2,
     )
     assert r._k == 8  # analytic scene: dispatch-bound, batch by default
@@ -74,41 +72,6 @@ def test_auto_k_analytic_vs_mesh(reference_scenes):
         str(REPO_SCENES / "glassbunny.txt"),
         opts=RenderOptions(), resolution=(16, 16), trace_depth=2,
     )
-    # mesh scene on CPU falls back to the STAGED path -> no batching
-    # (on TPU the fused Pallas path gets auto k=2)
-    assert rm.staged and rm._k == 1
-
-
-def test_packet_auto_knobs():
-    # untextured env-less resident mesh scene -> (4,8,16)
-    rg = Renderer(
-        str(REPO_SCENES / "glassbunny.txt"),
-        opts=RenderOptions(), resolution=(16, 16), trace_depth=2,
-    )
-    assert (rg.opts.packet_p, rg.opts.packet_q, rg.opts.packet_rows) == (4, 8, 16)
-    # env scene keeps the straggler-friendly default
-    re = Renderer(
-        str(REPO_SCENES / "envbunny.txt"),
-        opts=RenderOptions(), resolution=(16, 16), trace_depth=2,
-    )
-    assert (re.opts.packet_p, re.opts.packet_q, re.opts.packet_rows) == (2, 4, 8)
-    # textured scene keeps the default (gather-bound)
-    rt = Renderer(
-        str(REPO_SCENES / "texturecube.txt"),
-        opts=RenderOptions(), resolution=(16, 16), trace_depth=2,
-    )
-    assert (rt.opts.packet_p, rt.opts.packet_q, rt.opts.packet_rows) == (2, 4, 8)
-    # explicit knobs always win over the auto policy
-    rx = Renderer(
-        str(REPO_SCENES / "glassbunny.txt"),
-        opts=RenderOptions(packet_p=2, packet_q=2, packet_rows=8),
-        resolution=(16, 16), trace_depth=2,
-    )
-    assert (rx.opts.packet_p, rx.opts.packet_q, rx.opts.packet_rows) == (2, 2, 8)
-    # packet_auto=False disables the policy entirely
-    rn = Renderer(
-        str(REPO_SCENES / "glassbunny.txt"),
-        opts=RenderOptions(packet_auto=False),
-        resolution=(16, 16), trace_depth=2,
-    )
-    assert (rn.opts.packet_p, rn.opts.packet_q, rn.opts.packet_rows) == (2, 4, 8)
+    # mesh scene on CPU takes the XLA walk on the STAGED path -> no
+    # batching (on the GPU the fused kernel path gets auto k=2)
+    assert rm.traversal == "xla" and rm.staged and rm._k == 1

@@ -8,12 +8,12 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pathtracer_tpu.integrator.render import Renderer
-from pathtracer_tpu.ops.envmap import env_pdf, sample_env
-from pathtracer_tpu.scene.flatscene import build_flat_scene
-from pathtracer_tpu.scene.parser import load_scene
-from pathtracer_tpu.utils.config import RenderOptions, SampleMode
-from pathtracer_tpu.utils.image_io import write_hdr
+from pathtracer.integrator.render import Renderer
+from pathtracer.ops.envmap import env_pdf, sample_env
+from pathtracer.scene.flatscene import build_flat_scene
+from pathtracer.scene.parser import load_scene
+from pathtracer.utils.config import RenderOptions, SampleMode
+from pathtracer.utils.image_io import write_hdr
 
 
 def make_env_scene(tmp_path, env_img, body_extra=""):

@@ -7,9 +7,9 @@ import textwrap
 import numpy as np
 import pytest
 
-from pathtracer_tpu.integrator.render import Renderer
-from pathtracer_tpu.utils.config import RenderOptions, SampleMode
-from pathtracer_tpu.utils.image_io import write_hdr
+from pathtracer.integrator.render import Renderer
+from pathtracer.utils.config import RenderOptions, SampleMode
+from pathtracer.utils.image_io import write_hdr
 
 
 def write_scene(tmp_path, body, name="scene.txt"):
@@ -261,8 +261,7 @@ class TestCrossModeConsistency:
 
 
 class TestSortedPoolEquivalence:
-    """The per-bounce ray sort (with its packet-purity root-box key bit)
-    and the straggler-phase pool shrink are pure reorderings: RNG keys on
+    """The per-bounce ray sort and the straggler-phase pool shrink are pure reorderings: RNG keys on
     lane and contributions ride the ray, so both must be BIT-identical to
     the unsorted render (scenes with >=512 tris activate them)."""
 
@@ -274,12 +273,10 @@ class TestSortedPoolEquivalence:
 
         tmp = tmp_path_factory.mktemp("sortpool")
         scene = tri_soup_scene(tmp, n=600)
-        # packet_rows=1 makes the quarter-pool tile (rows*128) divide the
-        # tiny 64x32 test pool so the shrink phase genuinely runs (the
-        # soup drops to <3% alive after one bounce)
-        base = RenderOptions(
-            sample_mode=SampleMode.MIS, tonemapping=False, packet_rows=1
-        )
+        # the 128-lane shrink tile divides the tiny 64x32 test pool so
+        # the shrink phase genuinely runs (the soup drops to <3% alive
+        # after one bounce)
+        base = RenderOptions(sample_mode=SampleMode.MIS, tonemapping=False)
         out = {}
         for name, o in {
             "unsorted": replace(base, compaction=False),

@@ -4,8 +4,8 @@ conventions (reference: src/intersections.h, src/Bounds3.hpp)."""
 import numpy as np
 import jax.numpy as jnp
 
-from pathtracer_tpu.ops import intersect as ix
-from pathtracer_tpu.scene.parser import build_transformation_matrix
+from pathtracer.ops import intersect as ix
+from pathtracer.scene.parser import build_transformation_matrix
 
 
 def make_geom(trans=(0, 0, 0), rot=(0, 0, 0), scale=(1, 1, 1)):

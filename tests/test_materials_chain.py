@@ -7,19 +7,22 @@ reference: src/sceneStructs.h Material + src/pathtrace.cu:447 (materials
 are read per-hit by material id; ours resolves them per-geom at compile
 time, which is only sound if the two paths agree)."""
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 import jax.numpy as jnp
 
-from pathtracer_tpu.ops.materials import gather_material, material_by_geom
-from pathtracer_tpu.scene.flatscene import build_flat_scene
-from pathtracer_tpu.scene.parser import load_scene
+from pathtracer.ops.materials import gather_material, material_by_geom
+from pathtracer.scene.flatscene import build_flat_scene
+from pathtracer.scene.parser import load_scene
 
+_SCENES = Path(__file__).resolve().parent.parent / "scenes"
 SCENES = [
-    "/root/reference/scenes/dielectric_test.txt",   # 5 materials, untextured
-    "/root/reference/scenes/cornell.txt",           # shared-material groups
-    "scenes/texturecube.txt",                       # textured albedo chain
+    str(_SCENES / "dielectric_test.txt"),   # 5 materials, untextured
+    str(_SCENES / "cornell.txt"),           # shared-material groups
+    str(_SCENES / "texturecube.txt"),       # textured albedo chain
 ]
 
 

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pathtracer_tpu.ops import math as m
+from pathtracer.ops import math as m
 
 
 def rand_dirs(n, seed=0):

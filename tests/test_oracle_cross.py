@@ -2,7 +2,7 @@
 
 tools/oracle.py is a scalar/numpy port of the reference CUDA kernel
 semantics (reference: src/pathtrace.cu:405-588, src/material.h:450-521,
-src/lightSample.h:141-248) sharing no code with pathtracer_tpu.  Rendering
+src/lightSample.h:141-248) sharing no code with pathtracer.  Rendering
 the same scene with both implementations at matched spp must agree to the
 MC noise floor — a shared misreading of the reference physics would show
 up as a cross-RMSE far above it.  Full-resolution/high-spp evidence lives
@@ -12,10 +12,14 @@ Both renders are seeded and deterministic, so the cross-RMSE is a fixed
 number per code version; thresholds carry ~2x headroom over measured.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 
 from tools.oracle_compare import compare
+
+SCENES = Path(__file__).resolve().parent.parent / "scenes"
 
 
 def test_cross_rmse_default_tier():
@@ -24,7 +28,7 @@ def test_cross_rmse_default_tier():
     camera, RNG keying — surfaces in the everyday `pytest -q` run instead
     of at round end.  ~19 s on CPU; measured cross-RMSE 0.062 at this
     spp (2.4x headroom)."""
-    out = compare("/root/reference/scenes/cornell.txt", "mis",
+    out = compare(str(SCENES / "cornell.txt"), "mis",
                   res=32, spp=8, floors=False)
     assert out["rmse_lin"] <= 0.15, out
 
@@ -34,15 +38,15 @@ def test_cross_rmse_default_tier():
     "scene,mode,thresh",
     [
         # measured 0.054 / 0.0 (exact) / 0.196 — ~2x headroom
-        ("/root/reference/scenes/cornell.txt", "mis", 0.11),
-        ("/root/reference/scenes/cornell.txt", "direct", 1e-6),
-        ("/root/reference/scenes/dielectric_test.txt", "bsdf", 0.40),
+        (str(SCENES / "cornell.txt"), "mis", 0.11),
+        (str(SCENES / "cornell.txt"), "direct", 1e-6),
+        (str(SCENES / "dielectric_test.txt"), "bsdf", 0.40),
         # texture / normal-map / env rows (VERDICT r3 item 4): the
         # oracle's independent bilinear/TBN/env ports vs the framework's
         # u32-atlas/TBN/env path (thresholds ~2x measured cross-RMSE)
-        ("/root/repo/scenes/texturecube.txt", "mis", 0.20),
-        ("/root/repo/scenes/normalmap_test.txt", "mis", 0.16),
-        ("/root/reference/scenes/textureEnv_test.txt", "mis", 0.30),
+        (str(SCENES / "texturecube.txt"), "mis", 0.20),
+        (str(SCENES / "normalmap_test.txt"), "mis", 0.16),
+        (str(SCENES / "envbunny.txt"), "mis", 0.30),
     ],
 )
 def test_cross_rmse_at_noise_floor(scene, mode, thresh):

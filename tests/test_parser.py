@@ -4,7 +4,7 @@
 import numpy as np
 import pytest
 
-from pathtracer_tpu.scene.parser import (
+from pathtracer.scene.parser import (
     CUBE,
     DIELECTRIC,
     LAMBERTIAN,
@@ -15,13 +15,13 @@ from pathtracer_tpu.scene.parser import (
     build_transformation_matrix,
     load_scene,
 )
-from pathtracer_tpu.scene.camera import derive_camera
+from pathtracer.scene.camera import derive_camera
 
 
 class TestCornell:
     @pytest.fixture(scope="class")
-    def scene(self, reference_scenes):
-        return load_scene(reference_scenes / "cornell.txt")
+    def scene(self, scenes_dir):
+        return load_scene(scenes_dir / "cornell.txt")
 
     def test_materials(self, scene):
         assert len(scene.materials) == 9
@@ -85,41 +85,93 @@ class TestTransforms:
 
 
 class TestOtherScenes:
-    def test_mis_test(self, reference_scenes):
-        scene = load_scene(reference_scenes / "mis_test.txt")
+    def test_mis_test(self, scenes_dir):
+        scene = load_scene(scenes_dir / "mis_test.txt")
         assert len(scene.materials) == 8
         assert len(scene.geoms) == 8
         lights = [m for m in scene.materials if m.type == LIGHT]
         assert len(lights) == 5
-        # RIOR typo line is tolerated (mis_test.txt MATERIAL 3)
+        # the RIOR typo line is tolerated and leaves the default ior
+        assert scene.materials[scene.material_names["3"]].ior == pytest.approx(1.5)
         assert scene.camera.resolution == (1080, 1080)
 
-    def test_obj_scene(self, reference_scenes):
-        scene = load_scene(reference_scenes / "texture_test.txt")
+    def test_obj_scene(self, scenes_dir):
+        scene = load_scene(scenes_dir / "texturecube.txt")
         objs = [g for g in scene.geoms if g.type == OBJ]
         assert len(objs) == 1
         mesh = scene.meshes[objs[0].mesh_key]
         assert mesh["positions"].shape[0] == 12  # cube = 12 triangles
-        # testtexture.png resolves despite the windows-style ..\scenes\ path;
-        # body_norm.png is absent from the asset set (the reference would
-        # also fail it and fall back to a constant)
+        assert mesh["has_uvs"] and mesh["has_normals"]
         assert len(scene.textures) == 1
         tex_mat = scene.materials[scene.material_names["tex"]]
         assert tex_mat.albedo_tex >= 0
-        assert scene.materials[scene.material_names["tex2"]].albedo_tex == -1
+        assert scene.materials[scene.material_names["white"]].albedo_tex == -1
 
-    def test_env_scene(self, reference_scenes):
-        scene = load_scene(reference_scenes / "env_test.txt")
+    def test_env_scene(self, scenes_dir):
+        scene = load_scene(scenes_dir / "envbunny.txt")
         assert scene.env_map_id >= 0
         env = scene.textures[scene.env_map_id]
         assert env.ndim == 3 and env.shape[2] == 3
         assert env.max() > 1.0  # HDR content
 
-    def test_material_by_name_and_id(self, reference_scenes):
-        scene = load_scene(reference_scenes / "cornell.txt")
+    def test_material_by_name_and_id(self, scenes_dir):
+        scene = load_scene(scenes_dir / "cornell.txt")
         # object 6 references material by name "spe", object 0 by id "1"
         assert scene.geoms[0].material_id == scene.material_names["1"]
         assert scene.geoms[6].material_id == scene.material_names["spe"]
+
+
+class TestMissingAssets:
+    """A scene token that names a mesh or image file that does not exist
+    is an error; numeric constants still parse."""
+
+    SCENE = """
+MATERIAL m
+TYPE        Lambertian
+ALBEDO      {albedo}
+METALLIC    0
+ROUGHNESS   0.5
+IOR         0
+
+CAMERA
+RES         8 8
+FOVY        45
+ITERATIONS  1
+DEPTH       2
+FILE        t
+EYE         0 0 5
+LOOKAT      0 0 0
+UP          0 1 0
+
+OBJECT o
+{shape}
+material m
+TRANS       0 0 0
+ROTAT       0 0 0
+SCALE       1 1 1
+"""
+
+    @pytest.mark.parametrize(
+        "albedo,shape",
+        [
+            (".5 .5 .5", "missing/mesh.obj"),
+            ("missing/tex.png", "sphere"),
+            ("missing/tex.jpg", "sphere"),
+        ],
+    )
+    def test_missing_asset_raises(self, tmp_path, albedo, shape):
+        path = tmp_path / "s.txt"
+        path.write_text(self.SCENE.format(albedo=albedo, shape=shape))
+        with pytest.raises(FileNotFoundError, match="missing/"):
+            load_scene(path)
+
+    def test_constants_still_parse(self, tmp_path):
+        path = tmp_path / "s.txt"
+        path.write_text(self.SCENE.format(albedo=".25 .5 .75", shape="sphere"))
+        scene = load_scene(path)
+        np.testing.assert_allclose(scene.materials[0].albedo, [0.25, 0.5, 0.75])
+        assert scene.materials[0].roughness == pytest.approx(0.5)
+        assert scene.materials[0].albedo_tex == -1
 
 
 class TestObjFastPath:
@@ -132,7 +184,7 @@ class TestObjFastPath:
 
     def test_vtn_triangles_fast_equals_slow(self, tmp_path):
         import numpy as np
-        from pathtracer_tpu.scene import obj_loader as ol
+        from pathtracer.scene import obj_loader as ol
 
         rng = np.random.default_rng(3)
         v = rng.normal(size=(9, 3))
@@ -155,7 +207,7 @@ class TestObjFastPath:
 
     def test_ngon_falls_back_to_fan(self, tmp_path):
         import numpy as np
-        from pathtracer_tpu.scene import obj_loader as ol
+        from pathtracer.scene import obj_loader as ol
 
         body = (
             "v 0 0 0\nv 1 0 0\nv 1 1 0\nv 0 1 0\n"
@@ -168,7 +220,7 @@ class TestObjFastPath:
 
     def test_double_slash_normals(self, tmp_path):
         import numpy as np
-        from pathtracer_tpu.scene import obj_loader as ol
+        from pathtracer.scene import obj_loader as ol
 
         body = (
             "v 0 0 0\nv 1 0 0\nv 0 1 0\n"
@@ -181,7 +233,7 @@ class TestObjFastPath:
 
     def test_negative_indices(self, tmp_path):
         import numpy as np
-        from pathtracer_tpu.scene import obj_loader as ol
+        from pathtracer.scene import obj_loader as ol
 
         body = "v 0 0 0\nv 1 0 0\nv 0 1 0\nf -3 -2 -1\n"
         m = ol.load_obj(self._write(tmp_path, "neg.obj", body))

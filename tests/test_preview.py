@@ -9,9 +9,9 @@ import urllib.request
 import numpy as np
 import pytest
 
-from pathtracer_tpu.integrator.render import Renderer
-from pathtracer_tpu.preview.server import start_preview_thread
-from pathtracer_tpu.utils.config import RenderOptions, SampleMode
+from pathtracer.integrator.render import Renderer
+from pathtracer.preview.server import start_preview_thread
+from pathtracer.utils.config import RenderOptions, SampleMode
 
 SCENE = """
 MATERIAL light
@@ -74,7 +74,7 @@ class TestPreviewServer:
     def test_page_and_frame(self, preview):
         state, base = preview
         page = get(base, "/").read()
-        assert b"pathtracer_tpu" in page
+        assert b"pathtracer" in page
         deadline = time.time() + 60
         png = b""
         while time.time() < deadline:

@@ -10,27 +10,29 @@ and nk>1 batches match sequential renders to float32 reassociation
 tolerance.
 """
 
+from pathlib import Path
+
 import numpy as np
 import jax
 import jax.numpy as jnp
 import pytest
 
-from pathtracer_tpu.integrator.render import Renderer, swizzle_map
-from pathtracer_tpu.integrator.wavefront import (
+from pathtracer.integrator.render import Renderer, swizzle_map
+from pathtracer.integrator.wavefront import (
     CameraArrays,
     make_render_iteration,
     swizzle_xy_from_lane,
 )
-from pathtracer_tpu.scene.camera import derive_camera
-from pathtracer_tpu.scene.flatscene import build_flat_scene
-from pathtracer_tpu.scene.parser import load_scene
-from pathtracer_tpu.utils import rng
-from pathtracer_tpu.utils.config import RenderOptions, SampleMode
+from pathtracer.scene.camera import derive_camera
+from pathtracer.scene.flatscene import build_flat_scene
+from pathtracer.scene.parser import load_scene
+from pathtracer.utils import rng
+from pathtracer.utils.config import RenderOptions, SampleMode
 
 from tests.test_envmap import make_env_scene
 from tests.test_traverse import tri_soup_scene
 
-CORNELL = "/root/reference/scenes/cornell.txt"
+CORNELL = str(Path(__file__).resolve().parent.parent / "scenes" / "cornell.txt")
 
 
 def _close(a, b, rtol=2e-4, atol=2e-5):
@@ -48,7 +50,7 @@ class TestSwizzleInverse:
 
 
 class TestRegenRenderer:
-    def test_nk1_bitwise_matches_classic(self, reference_scenes):
+    def test_nk1_bitwise_matches_classic(self, scenes_dir):
         """A 1-sample batch runs the identical program shape with identical
         RNG — the image must be BITWISE equal to the classic iteration."""
         opts = RenderOptions(sample_mode=SampleMode.MIS)
@@ -203,10 +205,8 @@ class TestRegenMeshSortedPool:
         scene = load_scene(lit_soup_scene(tmp, n=600, seed=11))
         scene.camera.resolution = (64, 64)
         scene.trace_depth = 4
-        opts = RenderOptions(
-            sample_mode=SampleMode.MIS, pallas_traversal=False,
-            packet_rows=1,  # tile=128 so the shrink ladder has levels at 4096 lanes
-        )
+        # the 128-lane shrink tile gives the ladder levels at 4096 lanes
+        opts = RenderOptions(sample_mode=SampleMode.MIS, traversal="xla")
         flat, static = build_flat_scene(scene, opts=opts)
         assert static.num_tris >= 512  # the purity sort must be ON
         p, v, u, r, pl = derive_camera(scene.camera).as_arrays()

@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from pathtracer_tpu.utils import rng
+from pathtracer.utils import rng
 
 
 def draw(seed=0, it=1, depth=0, stage=1, n=50000, ncols=3):

@@ -9,20 +9,20 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pathtracer_tpu.integrator.wavefront import CameraArrays, make_render_iteration
-from pathtracer_tpu.parallel import sharding as sh
-from pathtracer_tpu.scene.camera import derive_camera
-from pathtracer_tpu.scene.flatscene import build_flat_scene
-from pathtracer_tpu.scene.parser import load_scene
-from pathtracer_tpu.utils import rng
-from pathtracer_tpu.utils.config import RenderOptions, SampleMode
+from pathtracer.integrator.wavefront import CameraArrays, make_render_iteration
+from pathtracer.parallel import sharding as sh
+from pathtracer.scene.camera import derive_camera
+from pathtracer.scene.flatscene import build_flat_scene
+from pathtracer.scene.parser import load_scene
+from pathtracer.utils import rng
+from pathtracer.utils.config import RenderOptions, SampleMode
 
 
 @pytest.mark.slow
-def test_sample_parallel_equals_sequential(tmp_path, reference_scenes):
+def test_sample_parallel_equals_sequential(tmp_path, scenes_dir):
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    scene = load_scene(reference_scenes / "cornell.txt")
+    scene = load_scene(scenes_dir / "cornell.txt")
     scene.camera.resolution = (48, 48)
     flat, static = build_flat_scene(scene)
     opts = RenderOptions(sample_mode=SampleMode.MIS)

@@ -18,8 +18,8 @@ import jax.numpy as jnp
 import pytest
 from scipy.stats import chi2
 
-from pathtracer_tpu.ops import math as m
-from pathtracer_tpu.ops.materials import (
+from pathtracer.ops import math as m
+from pathtracer.ops.materials import (
     MatParams,
     _metallic_sample,
     _microfacet_sample,
@@ -199,7 +199,7 @@ class TestMetallicChiSquare:
 
 class TestLambertianChiSquare:
     def test_cosine_hemisphere_matches_pdf(self):
-        from pathtracer_tpu.ops.materials import _lambertian_sample
+        from pathtracer.ops.materials import _lambertian_sample
 
         stat, dof, pval = _run_lobe(
             _lambertian_sample,

@@ -1,106 +1,99 @@
-"""Every reference scene file must load (new-format ones fully; legacy
-starter-format ones degrade exactly as the reference parser does —
-materials fall back to defaults, SURVEY.md §4 point 2)."""
+"""Every in-repo scene file must load and build; the parser must accept
+the reference's legacy starter format the way the reference parser does
+(materials fall back to defaults, SURVEY.md §4 point 2)."""
 
 import numpy as np
 import pytest
 
-from pathtracer_tpu.scene.flatscene import build_flat_scene
-from pathtracer_tpu.scene.parser import load_scene
+from pathtracer.scene.flatscene import build_flat_scene
+from pathtracer.scene.parser import load_scene
 
-NEW_FORMAT = [
-    # (file, geoms, materials, lights)
-    ("cornell.txt", 8, 9, 1),
-    ("mis_test.txt", 8, 8, 5),
-    ("mis_test2.txt", 7, None, None),  # the second Veach variant
-    ("bsdf_test.txt", None, None, None),
-    ("dielectric_test.txt", None, None, None),
-    ("metallic_test.txt", None, None, None),
-    ("microfacet_test.txt", None, None, None),
-    ("texture_test.txt", 7, 10, 1),
-    ("normalMap.txt", None, None, None),
-    ("textureEnv_test.txt", None, None, None),
-    ("camera.txt", None, None, None),
-    ("pbr_texture.txt", None, None, None),
-    ("env_test.txt", None, None, None),  # bunny_large.obj asset missing → warns
+SCENES = [
+    # (file, geoms, materials, lights, triangles)
+    ("cornell.txt", 8, 9, 1, 0),
+    ("mis_test.txt", 8, 8, 5, 0),
+    ("dielectric_test.txt", 8, 5, 1, 0),
+    ("glassbunny.txt", 7, 5, 1, 15680),
+    ("envbunny.txt", 2, 2, 0, 15680),
+    ("texturecube.txt", 3, 3, 1, 12),
+    ("normalmap_test.txt", 3, 3, 1, 12),
+    ("textureenv.txt", 2, 2, 0, 12),
 ]
 
-LEGACY_FORMAT = ["BVH_test.txt", "obj_test.txt", "sphere.txt", "test.txt"]
 
-
-@pytest.mark.parametrize("name,geoms,mats,lights", NEW_FORMAT)
-def test_new_format_scene_builds(reference_scenes, name, geoms, mats, lights):
-    path = reference_scenes / name
-    if not path.exists():
-        pytest.skip(f"{name} absent")
-    import warnings
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        scene = load_scene(path)
+@pytest.mark.parametrize("name,geoms,mats,lights,tris", SCENES)
+def test_scene_builds(scenes_dir, name, geoms, mats, lights, tris):
+    scene = load_scene(scenes_dir / name)
     flat, static = build_flat_scene(scene)
     assert static.width > 0 and static.height > 0
-    if geoms is not None:
-        assert static.num_geoms == geoms
-    if mats is not None:
-        assert static.num_materials == mats
-    if lights is not None:
-        assert static.num_lights == lights
+    assert static.num_geoms == geoms
+    assert static.num_materials == mats
+    assert static.num_lights == lights
+    assert static.num_tris == tris
     # device tables are well-formed
     assert np.isfinite(np.asarray(flat.geom_transform)).all()
     assert flat.mat_f32.shape[0] == 8
 
 
-@pytest.mark.parametrize("name", LEGACY_FORMAT)
-def test_legacy_scene_degrades_gracefully(reference_scenes, name):
-    path = reference_scenes / name
-    if not path.exists():
-        pytest.skip(f"{name} absent")
-    import warnings
+# the reference's starter format: RGB/SPECEX/... material lines and a
+# numbered camera block the new-format parser does not read
+LEGACY_SCENE = """
+MATERIAL 0
+RGB         1 1 1
+SPECEX      0
+SPECRGB     0 0 0
+REFL        0
+REFR        0
+REFRIOR     0
+EMITTANCE   5
 
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        scene = load_scene(path)
+CAMERA
+RES         16 16
+FOVY        45
+ITERATIONS  10
+DEPTH       4
+FILE        legacy
+EYE         0.0 5 10.5
+LOOKAT      0 5 0
+UP          0 1 0
+
+OBJECT 0
+sphere
+material 0
+TRANS       0 5 0
+ROTAT       0 0 0
+SCALE       3 3 3
+"""
+
+
+def test_legacy_scene_degrades_gracefully(tmp_path):
+    path = tmp_path / "legacy.txt"
+    path.write_text(LEGACY_SCENE)
+    scene = load_scene(path)
     # the reference parser reads TYPE/ALBEDO/... only; legacy RGB/SPECEX
     # blocks leave default materials — loading must not raise
     flat, static = build_flat_scene(scene)
-    assert static.num_geoms >= 0
+    assert static.num_geoms == 1
+    np.testing.assert_allclose(scene.materials[0].albedo, [1, 1, 1])
 
 
-RENDER_SMOKE = [
-    # every loadable reference scene gets at least a tiny end-to-end render
-    # (VERDICT round 1: camera.txt / pbr_texture.txt were parse-only)
-    "mis_test2.txt",
-    "camera.txt",
-    "pbr_texture.txt",
-]
+RENDER_SMOKE = ["mis_test.txt", "dielectric_test.txt", "normalmap_test.txt"]
 
 
 @pytest.mark.slow
 @pytest.mark.parametrize("name", RENDER_SMOKE)
-def test_scene_render_smoke(reference_scenes, name):
-    path = reference_scenes / name
-    if not path.exists():
-        pytest.skip(f"{name} absent")
-    import warnings
+def test_scene_render_smoke(scenes_dir, name):
+    from pathtracer.integrator.render import Renderer
+    from pathtracer.utils.config import RenderOptions, SampleMode
 
-    from pathtracer_tpu.integrator.render import Renderer
-    from pathtracer_tpu.utils.config import RenderOptions, SampleMode
-
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore")
-        r = Renderer(
-            str(path),
-            opts=RenderOptions(sample_mode=SampleMode.MIS),
-            resolution=(16, 16),
-            trace_depth=3,
-        )
-        r.step(1)
+    r = Renderer(
+        str(scenes_dir / name),
+        opts=RenderOptions(sample_mode=SampleMode.MIS),
+        resolution=(16, 16),
+        trace_depth=3,
+    )
+    r.step(1)
     img = np.asarray(r.img)
     assert np.isfinite(img).all()
     assert (img >= 0).all()
-    # camera.txt / pbr_texture.txt are lit ONLY by an env HDR the reference
-    # repo does not ship (photo_studio_loft_hall_4k.hdr) — black is the
-    # correct render there; scenes with actual light sources must glow
-    if r.static.num_lights > 0 or r.static.env_map_id >= 0:
-        assert img.max() > 0, "smoke render produced a black frame"
+    assert img.max() > 0, "smoke render produced a black frame"

@@ -1,6 +1,6 @@
 """Multi-device sharding tests on the 8-device virtual CPU mesh.
 
-Validates the TPU scale-out design (SURVEY.md §2 parallelism table): the
+Validates the scale-out design (SURVEY.md §2 parallelism table): the
 pixel-sharded render must be bitwise identical to a single-device render of
 the same shard shape (position-keyed RNG), and statistically identical to
 the full-frame render.
@@ -11,20 +11,20 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from pathtracer_tpu.integrator.wavefront import CameraArrays, make_render_iteration
-from pathtracer_tpu.parallel import sharding as sh
-from pathtracer_tpu.scene.camera import derive_camera
-from pathtracer_tpu.scene.flatscene import build_flat_scene
-from pathtracer_tpu.scene.parser import load_scene
-from pathtracer_tpu.utils import rng
-from pathtracer_tpu.utils.config import RenderOptions, SampleMode
+from pathtracer.integrator.wavefront import CameraArrays, make_render_iteration
+from pathtracer.parallel import sharding as sh
+from pathtracer.scene.camera import derive_camera
+from pathtracer.scene.flatscene import build_flat_scene
+from pathtracer.scene.parser import load_scene
+from pathtracer.utils import rng
+from pathtracer.utils.config import RenderOptions, SampleMode
 
 
 @pytest.fixture(scope="module")
-def setup(reference_scenes):
+def setup(scenes_dir):
     if len(jax.devices()) < 8:
         pytest.skip("needs 8 virtual devices")
-    scene = load_scene(reference_scenes / "cornell.txt")
+    scene = load_scene(scenes_dir / "cornell.txt")
     scene.camera.resolution = (64, 64)
     flat, static = build_flat_scene(scene)
     opts = RenderOptions(sample_mode=SampleMode.MIS)
@@ -155,34 +155,61 @@ class TestRendererDevicesSmoke:
     step, bitwise vs single-device.  The heavier 8-device/triangle/
     checkpoint variants stay in the --runslow class below."""
 
-    def test_renderer_2dev_bitwise_matches_single(self, reference_scenes):
+    def test_renderer_2dev_bitwise_matches_single(self, scenes_dir):
         if len(jax.devices()) < 2:
             pytest.skip("needs 2 virtual devices")
-        from pathtracer_tpu.integrator.render import Renderer
+        from pathtracer.integrator.render import Renderer
 
         opts = RenderOptions(sample_mode=SampleMode.MIS)
-        r2 = Renderer(str(reference_scenes / "cornell.txt"), opts=opts,
+        r2 = Renderer(str(scenes_dir / "cornell.txt"), opts=opts,
                       resolution=(32, 32), trace_depth=3, devices=2)
-        r1 = Renderer(str(reference_scenes / "cornell.txt"), opts=opts,
+        r1 = Renderer(str(scenes_dir / "cornell.txt"), opts=opts,
                       resolution=(32, 32), trace_depth=3)
         r2.step(1)
         r1.step(1)
         np.testing.assert_array_equal(r2.ldr_image(), r1.ldr_image())
 
 
+    def test_sharded_mesh_matches_unswizzled_single(self, scenes_dir):
+        """Triangle scenes swizzle the single-device pool, which keys the
+        RNG by lane; the row-sharded pool keys it by pixel.  So the sharded
+        render equals the single-device render with the swizzle OFF (and
+        only in distribution the swizzled one).  64x32 spans two 32x32
+        swizzle blocks, so the swizzle is not the identity here."""
+        if len(jax.devices()) < 2:
+            pytest.skip("needs 2 virtual devices")
+        from dataclasses import replace
+
+        from pathtracer.integrator.render import Renderer
+
+        opts = RenderOptions(sample_mode=SampleMode.MIS)
+        scene = str(scenes_dir / "glassbunny.txt")
+        r2 = Renderer(scene, opts=opts, resolution=(64, 32), trace_depth=2,
+                      devices=2)
+        r1 = Renderer(scene, opts=replace(opts, swizzle=False),
+                      resolution=(64, 32), trace_depth=2)
+        rz = Renderer(scene, opts=opts, resolution=(64, 32), trace_depth=2)
+        assert rz.pixel_order is not None
+        assert not np.array_equal(rz.pixel_order, np.arange(64 * 32))
+        for r in (r2, r1, rz):
+            r.step(1)
+        np.testing.assert_allclose(r2.ldr_image(), r1.ldr_image(), atol=1e-5)
+        assert np.abs(r2.ldr_image() - rz.ldr_image()).max() > 1e-2
+
+
 @pytest.mark.slow
 class TestRendererDevices:
     """The user surface: `Renderer(devices=N)` / `cli render --devices N`."""
 
-    def test_renderer_8dev_bitwise_matches_single(self, reference_scenes):
+    def test_renderer_8dev_bitwise_matches_single(self, scenes_dir):
         if len(jax.devices()) < 8:
             pytest.skip("needs 8 virtual devices")
-        from pathtracer_tpu.integrator.render import Renderer
+        from pathtracer.integrator.render import Renderer
 
         opts = RenderOptions(sample_mode=SampleMode.MIS)
-        r8 = Renderer(str(reference_scenes / "cornell.txt"), opts=opts,
+        r8 = Renderer(str(scenes_dir / "cornell.txt"), opts=opts,
                       resolution=(64, 64), devices=8)
-        r1 = Renderer(str(reference_scenes / "cornell.txt"), opts=opts,
+        r1 = Renderer(str(scenes_dir / "cornell.txt"), opts=opts,
                       resolution=(64, 64))
         r8.step(3)
         r1.step(3)
@@ -194,7 +221,7 @@ class TestRendererDevices:
         off), result pixel-identical to the swizzled single-device render."""
         if len(jax.devices()) < 8:
             pytest.skip("needs 8 virtual devices")
-        from pathtracer_tpu.integrator.render import Renderer
+        from pathtracer.integrator.render import Renderer
         from tests.test_traverse import tri_soup_scene
 
         path = tri_soup_scene(tmp_path, n=64, seed=9)
@@ -206,13 +233,13 @@ class TestRendererDevices:
         r1.step(2)
         np.testing.assert_array_equal(r8.ldr_image(), r1.ldr_image())
 
-    def test_sharded_checkpoint_roundtrip(self, reference_scenes, tmp_path):
+    def test_sharded_checkpoint_roundtrip(self, scenes_dir, tmp_path):
         if len(jax.devices()) < 8:
             pytest.skip("needs 8 virtual devices")
-        from pathtracer_tpu.integrator.render import Renderer
+        from pathtracer.integrator.render import Renderer
 
         opts = RenderOptions(sample_mode=SampleMode.MIS)
-        scene = str(reference_scenes / "cornell.txt")
+        scene = str(scenes_dir / "cornell.txt")
         ra = Renderer(scene, opts=opts, resolution=(64, 64), devices=8)
         ra.step(2)
         ck = tmp_path / "shard.npz"
@@ -230,28 +257,25 @@ class TestRendererDevices:
             r1.load_checkpoint(ck)
 
 
-@pytest.mark.slow
-class TestShardedPallasComposition:
-    def test_sharded_interpret_pallas_matches_xla(self, tmp_path):
-        """Sharded render composed with the Pallas packet kernels
-        (interpret mode) must match the sharded XLA-walk render — the
+class TestShardedKernelComposition:
+    def test_sharded_interpret_kernel_matches_xla(self, tmp_path):
+        """Sharded render through the traversal kernel (interpret mode
+        inside shard_map) must match the sharded XLA-walk render — the
         sharding and traversal layers are independent."""
-        from tests.test_traverse import tri_soup_scene
-        from pathtracer_tpu.integrator.render import Renderer
-        from pathtracer_tpu.utils.config import RenderOptions, SampleMode
-
         from dataclasses import replace
+
+        from pathtracer.integrator.render import Renderer
+        from tests.test_traverse import tri_soup_scene
 
         path = tri_soup_scene(tmp_path, n=600, seed=9)
         base = RenderOptions(sample_mode=SampleMode.MIS)
-        ra = Renderer(path, opts=replace(base, interpret=True,
-                                         pallas_traversal=True),
-                      resolution=(32, 16), trace_depth=3, devices=2)
-        rb = Renderer(path, opts=replace(base, pallas_traversal=False),
-                      resolution=(32, 16), trace_depth=3, devices=2)
-        assert ra.opts.pallas_traversal  # interpret keeps the kernels on
-        ra.step(2)
-        rb.step(2)
-        a = np.asarray(ra.img)
-        b = np.asarray(rb.img)
-        np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-6)
+        ra = Renderer(path, opts=replace(base, traversal="interpret"),
+                      resolution=(16, 8), trace_depth=2, devices=2)
+        rb = Renderer(path, opts=replace(base, traversal="xla"),
+                      resolution=(16, 8), trace_depth=2, devices=2)
+        assert ra.traversal == "interpret" and rb.traversal == "xla"
+        ra.step(1)
+        rb.step(1)
+        np.testing.assert_allclose(
+            np.asarray(ra.img), np.asarray(rb.img), rtol=1e-5, atol=1e-6
+        )

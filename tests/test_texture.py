@@ -6,8 +6,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pathtracer_tpu.ops.texture import bilinear_sample, sample_or_const
-from pathtracer_tpu.utils.distribution import Distribution1D, Distribution2D
+from pathtracer.ops.texture import bilinear_sample, sample_or_const
+from pathtracer.utils.distribution import Distribution1D, Distribution2D
 
 
 def ref_linear_sample(img, u, v):
@@ -132,7 +132,7 @@ class TestPackedAtlas:
     path for 8-bit sources, 1 gather per tap."""
 
     def test_matches_float_path(self):
-        from pathtracer_tpu.ops.texture import bilinear_sample, bilinear_sample_u32
+        from pathtracer.ops.texture import bilinear_sample, bilinear_sample_u32
 
         rng = np.random.default_rng(6)
         # 8-bit-quantized source, like PNG textures
@@ -150,7 +150,7 @@ class TestPackedAtlas:
 
 
     def test_rgbe_roundtrip(self):
-        from pathtracer_tpu.ops.texture import bilinear_sample_u32
+        from pathtracer.ops.texture import bilinear_sample_u32
 
         rng = np.random.default_rng(7)
         hdr = (rng.random((6, 8, 3)) * 40.0).astype(np.float32)

@@ -6,10 +6,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from pathtracer_tpu.ops.intersect import ray_triangle
-from pathtracer_tpu.ops.traverse import FLT_MAX, closest_hit, occlusion_test
-from pathtracer_tpu.scene.flatscene import build_flat_scene
-from pathtracer_tpu.scene.parser import load_scene
+from pathtracer.ops.intersect import ray_triangle
+from pathtracer.ops.traverse import FLT_MAX, closest_hit, occlusion_test
+from pathtracer.scene.flatscene import build_flat_scene
+from pathtracer.scene.parser import load_scene
 import textwrap
 
 

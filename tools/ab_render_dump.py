@@ -15,12 +15,12 @@ if len(sys.argv) > 5 and sys.argv[5] == "cpu":
 
     jax.config.update("jax_platforms", "cpu")
 
-from pathtracer_tpu.utils import jaxcache
+from pathtracer.utils import jaxcache
 
 jaxcache.enable()
 
-from pathtracer_tpu.integrator.render import Renderer
-from pathtracer_tpu.utils.config import RenderOptions, SampleMode
+from pathtracer.integrator.render import Renderer
+from pathtracer.utils.config import RenderOptions, SampleMode
 
 mode = {"mis": SampleMode.MIS, "bsdf": SampleMode.BSDF,
         "direct": SampleMode.DIRECT_LI}[mode_s]

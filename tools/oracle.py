@@ -1,5 +1,5 @@
 """Independent end-to-end oracle: a numpy port of the reference CUDA
-path tracer's kernel semantics, sharing NO code with pathtracer_tpu.
+path tracer's kernel semantics, sharing NO code with pathtracer.
 
 Purpose (VERDICT round 2, "Missing #1"): every test in tests/ checks the
 framework against formula ports written by the same build; this module is
@@ -162,7 +162,7 @@ def _resolve_asset(tok: str, base: Path) -> str | None:
 def _read_rgbe(path: str) -> np.ndarray:
     """Independent Radiance RGBE (.hdr) decoder → float (H, W, 3).
     Written against the format spec (new-style RLE scanlines), sharing
-    no code with pathtracer_tpu.utils.image_io."""
+    no code with pathtracer.utils.image_io."""
     raw = Path(path).read_bytes()
     # header ends at the first blank line; next line is the size spec
     pos = raw.find(b"\n\n")
@@ -903,7 +903,7 @@ def closest_hit(sc: OScene, O, D):
     # the clamped copy — but for UVs outside [0,1] that linearSample
     # (src/image.h:73-85) computes texel indices outside the image and
     # reads out of bounds (undefined behavior, not a semantic).  Both this
-    # oracle and pathtracer_tpu (ops/traverse.py:422, clamp-to-edge taps)
+    # oracle and pathtracer (ops/traverse.py:422, clamp-to-edge taps)
     # clamp before every tap, so the two implementations agree with each
     # other and differ from the reference only where the reference is UB.
     uv = np.clip(uv, 0.0, 1.0)

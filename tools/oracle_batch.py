@@ -1,8 +1,12 @@
-"""Sequential oracle cross-check batch (single-core host — do not parallelize).
+"""Oracle cross-check batch.
 
-Runs tools/oracle_compare.compare over the VERDICT-named scene/mode list and
-appends one JSON line per result to scenes_out/oracle_cross.jsonl so partial
-progress survives interruption.
+    python tools/oracle_batch.py [res=64] [spp=128] [scene-stem ...]
+
+Runs tools/oracle_compare.compare over the in-repo scene/mode list (or the
+named scenes only) and appends one JSON line per result to
+scenes_out/oracle_cross.jsonl so partial progress survives interruption;
+rows already in the file are skipped.  Several processes with disjoint
+scene lists may run at once.
 """
 
 from __future__ import annotations
@@ -19,33 +23,27 @@ jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from tools.oracle_compare import compare  # noqa: E402
 
-REF = Path("/root/reference/scenes")
-REPO = Path("/root/repo/scenes")
+SCENES = Path(__file__).resolve().parent.parent / "scenes"
 
 JOBS = [
-    (REF / "cornell.txt", "mis"),
-    (REF / "cornell.txt", "bsdf"),
-    (REF / "cornell.txt", "direct"),
-    (REF / "dielectric_test.txt", "bsdf"),
-    (REF / "dielectric_test.txt", "mis"),
-    (REF / "dielectric_test.txt", "direct"),
-    (REF / "mis_test.txt", "mis"),
-    (REF / "mis_test.txt", "bsdf"),
-    (REF / "mis_test.txt", "direct"),
-    (REF / "microfacet_test.txt", "mis"),
-    (REF / "microfacet_test.txt", "bsdf"),
-    # full material coverage (VERDICT r3 item 4): MetallicWorkflow
-    (REF / "metallic_test.txt", "mis"),
-    (REF / "metallic_test.txt", "bsdf"),
-    (REPO / "glassbunny.txt", "mis"),
-    (REPO / "glassbunny.txt", "bsdf"),
-    # texture / normal-map / env pipeline rows (VERDICT r3 item 4) —
-    # the oracle's own bilinear/TBN/env ports (tools/oracle.py) vs the
-    # framework's atlas/TBN/env path
-    (REPO / "texturecube.txt", "mis"),
-    (REPO / "normalmap_test.txt", "mis"),
-    (REPO / "envbunny.txt", "mis"),
-    (REF / "textureEnv_test.txt", "mis"),
+    (SCENES / "cornell.txt", "mis"),
+    (SCENES / "cornell.txt", "bsdf"),
+    (SCENES / "cornell.txt", "direct"),
+    (SCENES / "dielectric_test.txt", "bsdf"),
+    (SCENES / "dielectric_test.txt", "mis"),
+    (SCENES / "dielectric_test.txt", "direct"),
+    (SCENES / "mis_test.txt", "mis"),
+    (SCENES / "mis_test.txt", "bsdf"),
+    (SCENES / "mis_test.txt", "direct"),
+    (SCENES / "glassbunny.txt", "mis"),
+    (SCENES / "glassbunny.txt", "bsdf"),
+    # texture / normal-map / env pipeline rows: the oracle's own
+    # bilinear/TBN/env ports (tools/oracle.py) vs the framework's
+    # atlas/TBN/env path
+    (SCENES / "texturecube.txt", "mis"),
+    (SCENES / "normalmap_test.txt", "mis"),
+    (SCENES / "envbunny.txt", "mis"),
+    (SCENES / "textureenv.txt", "mis"),
 ]
 
 
@@ -61,7 +59,10 @@ def main():
                 pass
     res = int(sys.argv[1]) if len(sys.argv) > 1 else 64
     spp = int(sys.argv[2]) if len(sys.argv) > 2 else 128
+    only = set(sys.argv[3:])
     for scene, mode in JOBS:
+        if only and scene.stem not in only:
+            continue
         key = (scene.stem, mode)
         if key in done:
             print(f"skip {key} (done)", flush=True)

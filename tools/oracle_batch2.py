@@ -6,8 +6,7 @@ physics divergence would NOT shrink with spp.  So the strongest
 checkable accuracy statement is: cross-RMSE ≈ floor at every spp, and
 both shrink as 1/sqrt(spp).  This batch adds the high-spp points.
 
-Waits for any running oracle_batch to release the (single) CPU, then
-runs sequentially, appending to scenes_out/oracle_cross.jsonl with an
+Runs sequentially, appending to scenes_out/oracle_cross.jsonl with an
 "spp" field distinguishing the rows.
 """
 
@@ -25,17 +24,16 @@ jax.config.update("jax_platforms", "cpu")
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 from tools.oracle_compare import compare  # noqa: E402
 
-REF = Path("/root/reference/scenes")
-REPO = Path("/root/repo/scenes")
+SCENES = Path(__file__).resolve().parent.parent / "scenes"
 
 # (scene, mode, res, spp) — 2000 spp on the analytic scenes (the
 # BASELINE.json operating point), 512 on the mesh scene (oracle cost)
 JOBS = [
-    (REF / "cornell.txt", "mis", 64, 2000),
-    (REF / "cornell.txt", "bsdf", 64, 2000),
-    (REF / "dielectric_test.txt", "mis", 64, 2000),
-    (REF / "mis_test.txt", "mis", 64, 2000),
-    (REPO / "glassbunny.txt", "mis", 64, 512),
+    (SCENES / "cornell.txt", "mis", 64, 2000),
+    (SCENES / "cornell.txt", "bsdf", 64, 2000),
+    (SCENES / "dielectric_test.txt", "mis", 64, 2000),
+    (SCENES / "mis_test.txt", "mis", 64, 2000),
+    (SCENES / "glassbunny.txt", "mis", 64, 512),
 ]
 
 
