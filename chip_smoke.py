@@ -51,6 +51,9 @@ MIN_TRI_AGREE = 0.9999
 MIN_HIT_AGREE = 0.999
 T_REL_TOL = 1e-5
 MIN_OCC_AGREE = 0.9999
+# The pool must exercise the leaves: a fifth of its lanes must hit a
+# triangle (ray_pool aims a third of them at the mesh).
+MIN_TRI_HIT_SHARE = 0.2
 # GPU against CPU image (64x64, 4 spp, same seed).  The two backends
 # compute transcendental functions (sin, cos, exp, pow, sqrt) to within a
 # few ulp of each other but not bit for bit, so a path whose next event
@@ -62,6 +65,24 @@ MIN_OCC_AGREE = 0.9999
 MAX_DIFF_PIXEL_SHARE = 0.05
 PIXEL_TOL = 2.0 / 255.0
 MAX_MEAN_ABS_DIFF = 0.01
+# Phase 4 tolerances.  The sharded and the 1-card render run the same
+# per-pixel arithmetic on the same random numbers (the RNG is keyed by
+# pixel and iteration); the sample-space step runs the same iterations and
+# sums them in another order, which moves a sum by an ulp or two.  XLA may
+# also fuse the two programs' shapes differently, and a multiply-add
+# contracted in one and not the other moves a value by an ulp; a path whose
+# next choice sits within that ulp of its threshold then branches
+# differently; on a glass mesh, where a grazed edge or a Fresnel choice
+# decides each refraction, such paths are few but not none (2.08e-4 of the
+# pixels on 4x H100 at 800x800, 2 passes).  So a pixel agrees when each
+# channel of its radiance sum is within 1e-5 of the 1-card one, relative to
+# 1 + |value|; at most 1e-3 of the pixels may disagree, and they must be
+# scattered: at most 5% of any one image row.  A shard-boundary fault
+# shows as whole rows (one wrong row per shard is 5e-3 of the pixels and
+# 100% of its row).
+SHARD_RAD_TOL = 1e-5
+MAX_SHARD_DIFF_SHARE = 1e-3
+MAX_SHARD_ROW_SHARE = 0.05
 
 
 class SmokeFailure(RuntimeError):
@@ -166,7 +187,7 @@ def phase_main(smi, size=(800, 800), depth=8, passes=8):
     report("textureenv", r, stats, smi)
 
 
-def phase_kernel(smi, size=(800, 800), image_size=(64, 64), interpret=False):
+def phase_kernel(smi, size=(800, 800), image_size=(64, 64)):
     import jax
     import jax.numpy as jnp
     import numpy as np
@@ -193,7 +214,7 @@ def phase_kernel(smi, size=(800, 800), image_size=(64, 64), interpret=False):
         lambda f, o, d, m: tv._bvh_occluded(f, static, o, d, m, jnp.ones(m.shape, bool))
     )(flat, o, sd, min_t)
     kargs = dict(num_nodes=static.num_bvh_nodes, num_trees=static.num_bvh_trees,
-                 max_prim=static.max_prim, interpret=interpret)
+                 max_prim=static.max_prim)
     t, tri, _, _ = jax.jit(lambda f, o, d, t0: tk.closest_hit_kernel(
         f.bvh_f32, f.bvh_i32, f.tri_data, o, d, t0, **kargs))(flat, o, d, big)
     occ = jax.jit(lambda f, o, d, m: tk.occlusion_kernel(
@@ -207,7 +228,8 @@ def phase_kernel(smi, size=(800, 800), image_size=(64, 64), interpret=False):
     t_ok = float((rel <= T_REL_TOL).mean()) if both.any() else 1.0
     occ_agree = float((np.asarray(occ) == np.asarray(ref_occ)).mean())
     print(
-        f"kernel vs XLA walk, {n} rays, {static.num_tris} tris: tri ids agree "
+        f"kernel vs XLA walk, {n} rays, {static.num_tris} tris, {either.mean():.3f} "
+        f"of lanes hit a triangle (>= {MIN_TRI_HIT_SHARE}): tri ids agree "
         f"{same.mean():.6f} (>= {MIN_TRI_AGREE}), on {either.sum()} hit lanes "
         f"{hit_agree:.6f} (>= {MIN_HIT_AGREE}), t within "
         f"{T_REL_TOL:g} rel on {t_ok:.6f} (>= {MIN_TRI_AGREE}), max rel "
@@ -215,7 +237,8 @@ def phase_kernel(smi, size=(800, 800), image_size=(64, 64), interpret=False):
         f"(>= {MIN_OCC_AGREE}), occluded {np.asarray(ref_occ).mean():.3f} | {smi}",
         flush=True,
     )
-    check(either.mean() > 0.01, "the ray pool hits almost no triangles")
+    check(either.mean() >= MIN_TRI_HIT_SHARE,
+          f"only {either.mean():.3f} of the pool's lanes hit a triangle")
     check(same.mean() >= MIN_TRI_AGREE, "kernel and XLA walk disagree on triangle ids")
     check(hit_agree >= MIN_HIT_AGREE, "kernel and XLA walk disagree on hit lanes")
     check(t_ok >= MIN_TRI_AGREE, "kernel and XLA walk disagree on hit distances")
@@ -243,6 +266,39 @@ def phase_kernel(smi, size=(800, 800), image_size=(64, 64), interpret=False):
     check(float(np.abs(a - b).mean()) <= MAX_MEAN_ABS_DIFF, "GPU and CPU images differ")
 
 
+def disagreement(a, b, width: int):
+    """Pixels whose radiance differs beyond SHARD_RAD_TOL (of 1 + |b|) in
+    some channel: their share of the image and of its worst row, and the
+    largest absolute difference."""
+    import numpy as np
+
+    diff = np.abs(a - b)
+    bad = (diff > SHARD_RAD_TOL * (1.0 + np.abs(b))).any(axis=-1)
+    return (float(bad.mean()), float(bad.reshape(-1, width).mean(axis=1).max()),
+            float(diff.max()))
+
+
+def check_agreement(what: str, a, b, width: int) -> str:
+    import numpy as np
+
+    share, row, max_diff = disagreement(a, b, width)
+    msg = (f"radiance bitwise equal {bool(np.array_equal(a, b))}, {share:.6f} of "
+           f"pixels differ by > {SHARD_RAD_TOL:g} rel (<= {MAX_SHARD_DIFF_SHARE:g}), "
+           f"worst row {row:.4f} (<= {MAX_SHARD_ROW_SHARE}), max abs diff {max_diff:.3g}")
+    check(share <= MAX_SHARD_DIFF_SHARE and row <= MAX_SHARD_ROW_SHARE,
+          f"{what} differ: {msg}")
+    return msg
+
+
+def compile_together(*lowered):
+    """Compile lowered programs at once, one thread each (XLA compiles
+    without the GIL); later calls of the same jitted functions reuse them."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(lowered)) as pool:
+        return list(pool.map(lambda low: low.compile(), lowered))
+
+
 def phase_four(smi, size=(800, 800), passes=2, devices=4):
     """Pixel-space sharding over `devices` cards against one card, then
     one sample-space step against the same iterations on one card.
@@ -250,7 +306,7 @@ def phase_four(smi, size=(800, 800), passes=2, devices=4):
     The 1-card render runs without the 32x32 pixel swizzle: the swizzled
     pool keys its random numbers by lane, so it draws other samples than
     the pixel-ordered sharded pool (equal in distribution, not sample for
-    sample).  Without it both key by pixel and must agree pixel for pixel.
+    sample).  Without it both key by pixel and agree to SHARD_RAD_TOL.
     """
     import jax
     import jax.numpy as jnp
@@ -263,52 +319,45 @@ def phase_four(smi, size=(800, 800), passes=2, devices=4):
     check(len(jax.devices()) >= devices, f"{len(jax.devices())} devices, need {devices}")
     mis = RenderOptions(sample_mode=SampleMode.MIS)
     scene = str(SCENES / "glassbunny.txt")
-    r1 = Renderer(scene, opts=replace(mis, swizzle=False), resolution=size, trace_depth=8)
+    r1 = Renderer(scene, opts=replace(mis, swizzle=False, iters_per_dispatch=1),
+                  resolution=size, trace_depth=8)
     rs = Renderer(scene, opts=mis, resolution=size, trace_depth=8, devices=devices)
-    t0 = time.perf_counter()
-    rs.step(passes)
-    ts = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    r1.step(passes)
-    t1 = time.perf_counter() - t0
-    a = rs._unswizzle(np.asarray(rs.img))
-    b = r1._unswizzle(np.asarray(r1.img))
-    diff = np.abs(rs.ldr_image() - r1.ldr_image()).max(axis=-1)
-    share = float((diff > PIXEL_TOL).mean())
-    print(
-        f"pixel-sharded x{devices} vs 1 card, glassbunny {size[0]}x{size[1]} "
-        f"{passes} passes: radiance bitwise equal {bool(np.array_equal(a, b))}, "
-        f"max abs diff {float(np.abs(a - b).max()):.3g}; {share:.5f} of pixels "
-        f"differ by > {PIXEL_TOL:.4f} after tonemapping | first {passes} passes "
-        f"incl. compile: {ts:.1f} s sharded, {t1:.1f} s one card | {smi}",
-        flush=True,
-    )
     check(rs.traversal == "kernel", f"sharded render took {rs.traversal!r}")
-    check(share <= MAX_DIFF_PIXEL_SHARE, "sharded and 1-card images differ")
+    sample_step, combine = sh.sample_parallel_step(r1.static, mis, size[0], size[1], rs.mesh)
+    stacked = jax.device_put(
+        jnp.zeros((devices * size[0] * size[1], 3), jnp.float32),
+        jax.sharding.NamedSharding(rs.mesh, jax.sharding.PartitionSpec(sh.AXIS)),
+    )
+    cam, it = r1._cam_arrays(), jnp.int32(1)
+    t0 = time.perf_counter()
+    compile_together(
+        r1._iter_fn.lower(r1.flat, cam, r1.img, it, r1.key),
+        rs._sharded_step.lower(rs.flat, cam, rs.img, it, rs.key),
+        sample_step.lower(r1.flat, cam, stacked, it, r1.key),
+    )
+    compile_s = time.perf_counter() - t0
+    rs.step(passes)
+    r1.step(passes)
+    a = rs._unswizzle(np.asarray(rs.img)).reshape(-1, 3)
+    b = np.asarray(r1.img)
+    print(f"pixel-sharded x{devices} vs 1 card, glassbunny {size[0]}x{size[1]} "
+          f"{passes} passes; the three programs compiled together in "
+          f"{compile_s:.1f} s | {smi}", flush=True)
+    print("pixel-sharded: " + check_agreement(
+        "sharded and 1-card renders", a, b, size[0]), flush=True)
 
     # sample space: device k renders iteration k+1 of the full frame; the
     # sum is the 1-card accumulator after `devices` iterations
     r1.step(devices - passes)
-    mesh = sh.make_mesh(devices)
-    step, combine = sh.sample_parallel_step(r1.static, mis, size[0], size[1], mesh)
-    img = jax.device_put(
-        jnp.zeros((devices * size[0] * size[1], 3), jnp.float32),
-        jax.sharding.NamedSharding(mesh, jax.sharding.PartitionSpec(sh.AXIS)),
-    )
-    img, rays = step(r1.flat, r1._cam_arrays(), img, jnp.int32(1), r1.key)
-    combined = np.asarray(combine(img))
-    want = r1._unswizzle(np.asarray(r1.img))
+    stacked, rays = sample_step(r1.flat, cam, stacked, it, r1.key)
+    combined = np.asarray(combine(stacked))
+    want = np.asarray(r1.img)
     check(int(rays) > 0, "sample-space step traced no rays")
     check(np.isfinite(combined).all(), "sample-space image not finite")
-    rel = float(np.abs(combined - want).mean() / max(float(np.abs(want).mean()), 1e-12))
-    print(
-        f"sample-space x{devices}: {int(rays)} rays; combined image vs "
-        f"{devices} sequential 1-card iterations: bitwise "
-        f"{bool(np.array_equal(combined, want))}, mean rel diff {rel:.2e} "
-        f"(<= {MAX_MEAN_ABS_DIFF})",
-        flush=True,
-    )
-    check(rel <= MAX_MEAN_ABS_DIFF, "sample-space image differs from sequential")
+    print(f"sample-space x{devices}: {int(rays)} rays; combined image vs "
+          f"{devices} sequential 1-card iterations: " + check_agreement(
+              "sample-space and sequential images", combined, want, size[0]),
+          flush=True)
 
 
 def main(argv=None) -> int:

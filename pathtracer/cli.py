@@ -37,7 +37,8 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument(
         "--devices", type=int, default=None,
         help="shard pixel rows over N devices (jax.sharding.Mesh); the "
-        "position-keyed RNG keeps the image bit-identical to 1 device",
+        "pixel-keyed RNG draws the samples of a 1-device render without "
+        "the pixel swizzle",
     )
     p.add_argument(
         "--regen", type=int, default=0, metavar="K",

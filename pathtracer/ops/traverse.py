@@ -310,31 +310,27 @@ def _brute_closest(flat: FlatScene, o, d, t_min, tri, u, v):
     )
 
 
-TRAVERSALS = ("auto", "xla", "interpret")
+TRAVERSALS = ("auto", "xla")
 
 
 def resolve_traversal(choice: str, platform: str) -> str:
     """Which BVH walk a triangle scene takes on `platform` ("gpu", "cpu"):
-    "kernel" (the per-ray kernel), "xla" or "interpret".
+    "kernel" (the per-ray kernel) or "xla".
 
     "auto" is the kernel on the GPU and the XLA walk elsewhere.  "xla"
-    forces the XLA walk (the plain reference).  "interpret" runs the
-    kernel's body on the CPU and exists for tests; it is refused on any
-    other platform, so a GPU render never runs interpreted.
+    forces the XLA walk (the plain reference).
     """
     if choice not in TRAVERSALS:
         raise ValueError(f"traversal {choice!r} not in {TRAVERSALS}")
     if choice == "auto":
         return "kernel" if platform == "gpu" else "xla"
-    if choice == "interpret" and platform != "cpu":
-        raise ValueError(f"interpret mode is for CPU tests, not {platform}")
     return choice
 
 
-def _kernel_args(static: SceneStatic, traversal: str) -> dict:
+def _kernel_args(static: SceneStatic) -> dict:
     return dict(
         num_nodes=static.num_bvh_nodes, num_trees=static.num_bvh_trees,
-        max_prim=static.max_prim, interpret=traversal == "interpret",
+        max_prim=static.max_prim,
     )
 
 
@@ -344,7 +340,7 @@ def closest_hit(
 ) -> Hit:
     """Full-scene closest hit (geoms + triangles).
 
-    `traversal` ("xla", "kernel" or "interpret", see `resolve_traversal`)
+    `traversal` ("xla" or "kernel", see `resolve_traversal`)
     picks the triangle BVH walk; `alive` lets the kernel skip dead lanes.
     `use_bvh=False` is the reference's USE_BVH=0 brute-force triangle
     sweep (reference: src/utilities.h:22).
@@ -364,7 +360,7 @@ def closest_hit(
         t_init = t_min if alive is None else jnp.where(alive, t_min, DEAD_T)
         t_k, tri, u, v = traverse_kernel.closest_hit_kernel(
             flat.bvh_f32, flat.bvh_i32, flat.tri_data, o, d, t_init,
-            **_kernel_args(static, traversal),
+            **_kernel_args(static),
         )
         t_min = jnp.where(tri >= 0, t_k, t_min)
     elif static.num_tris > 0:
@@ -448,7 +444,7 @@ def occlusion_test(
         blocked = traverse_kernel.occlusion_kernel(
             flat.bvh_f32, flat.bvh_i32, flat.tri_data, ori, dir,
             jnp.where(trace, min_t, DEAD_T),
-            **_kernel_args(static, traversal),
+            **_kernel_args(static),
         )
         return occluded | blocked
     return occluded | _bvh_occluded(flat, static, ori, dir, min_t, trace)

@@ -17,7 +17,11 @@ embarrassingly parallel across pixels, so the scale-out design is:
   right axis when the image is small but spp is large.
 
 Because the RNG is keyed on global pixel index (utils/rng.pixel_uniforms),
-a sharded render is bitwise identical to the single-chip render.
+a sharded render draws the same samples as the single-device render
+WITHOUT the pixel swizzle (`RenderOptions.swizzle=False`; the swizzled pool
+keys the RNG by lane, so it matches only in distribution).  The two agree
+to float rounding: XLA may fuse the per-shard and the full-frame program
+differently (tests/test_sharding.py, `chip_smoke.py --four`).
 """
 
 from __future__ import annotations

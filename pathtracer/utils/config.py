@@ -49,9 +49,8 @@ class RenderOptions:
     # reference builds the luminance CDF but never samples it
     # (reference: src/scene.cpp:514-529, README.md:25-27 TODO)
     traversal: str = "auto"       # triangle BVH walk: "auto" = the per-ray
-    # kernel on the GPU, the XLA walk elsewhere; "xla" forces the XLA walk;
-    # "interpret" runs the kernel's body on the CPU (tests only).  See
-    # ops/traverse.resolve_traversal.
+    # kernel on the GPU, the XLA walk elsewhere; "xla" forces the XLA walk.
+    # See ops/traverse.resolve_traversal.
     compaction: bool = True       # per-bounce ray sorting by (alive, octant,
     # origin cell), the counterpart of the reference's compact_rays
     # (reference: src/pathtrace.cu:614-631), with the count kept on device.

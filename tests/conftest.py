@@ -66,3 +66,22 @@ def generated_assets():
 @pytest.fixture(scope="session")
 def scenes_dir():
     return SCENES
+
+
+@pytest.fixture
+def kernel_walk(monkeypatch):
+    """The GPU's choice of triangle walk, on the CPU: `traversal="auto"`
+    resolves to the traversal kernel, whose body runs in interpret mode."""
+    import functools
+
+    from pathtracer.integrator import render, wavefront
+    from pathtracer.ops import traverse, traverse_kernel
+
+    def as_on_gpu(choice, platform):
+        return traverse.resolve_traversal(choice, "gpu")
+
+    for mod in (render, wavefront):
+        monkeypatch.setattr(mod, "resolve_traversal", as_on_gpu)
+    for name in ("closest_hit_kernel", "occlusion_kernel"):
+        kernel = getattr(traverse_kernel, name)
+        monkeypatch.setattr(traverse_kernel, name, functools.partial(kernel, interpret=True))

@@ -42,19 +42,19 @@ def test_batched_iterations_bit_identical(scenes_dir):
     assert r1.stats.iterations_done == r2.stats.iterations_done == 7
 
 
-def test_batched_mesh_kernel_bit_identical(tmp_path):
+def test_batched_mesh_kernel_bit_identical(tmp_path, kernel_walk):
     """The fused mesh path through the traversal kernel (interpret mode on
     CPU) must be bit-identical batched vs unbatched too — this is the path
     GPU mesh scenes take with the auto k=2."""
     from tests.test_traverse import tri_soup_scene
 
     path = tri_soup_scene(tmp_path, n=200, seed=5)
-    base = RenderOptions(sample_mode=SampleMode.MIS, traversal="interpret")
+    base = RenderOptions(sample_mode=SampleMode.MIS)
     r1 = Renderer(path, opts=replace(base, iters_per_dispatch=1),
                   resolution=(16, 8), trace_depth=2)
     r2 = Renderer(path, opts=replace(base, iters_per_dispatch=2),
                   resolution=(16, 8), trace_depth=2)
-    assert not r1.staged and not r2.staged
+    assert r1.traversal == "kernel" and not r1.staged and not r2.staged
     assert r2._k == 2
     r1.step(3)
     r2.step(3)

@@ -258,7 +258,7 @@ class TestRendererDevices:
 
 
 class TestShardedKernelComposition:
-    def test_sharded_interpret_kernel_matches_xla(self, tmp_path):
+    def test_sharded_interpret_kernel_matches_xla(self, tmp_path, kernel_walk):
         """Sharded render through the traversal kernel (interpret mode
         inside shard_map) must match the sharded XLA-walk render — the
         sharding and traversal layers are independent."""
@@ -269,11 +269,11 @@ class TestShardedKernelComposition:
 
         path = tri_soup_scene(tmp_path, n=600, seed=9)
         base = RenderOptions(sample_mode=SampleMode.MIS)
-        ra = Renderer(path, opts=replace(base, traversal="interpret"),
+        ra = Renderer(path, opts=base,
                       resolution=(16, 8), trace_depth=2, devices=2)
         rb = Renderer(path, opts=replace(base, traversal="xla"),
                       resolution=(16, 8), trace_depth=2, devices=2)
-        assert ra.traversal == "interpret" and rb.traversal == "xla"
+        assert ra.traversal == "kernel" and rb.traversal == "xla"
         ra.step(1)
         rb.step(1)
         np.testing.assert_allclose(

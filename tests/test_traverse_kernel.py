@@ -87,14 +87,14 @@ class TestClosest:
         ref = closest_hit(flat, static, o, d)
         np.testing.assert_array_equal(np.asarray(tri), np.asarray(ref.tri))
 
-    def test_full_hit_record_matches(self, soup_scene):
+    def test_full_hit_record_matches(self, soup_scene, kernel_walk):
         """closest_hit through the kernel: the same geom, point, normal and
         uv as through the XLA walk, with dead lanes skipped."""
         flat, static = _build(soup_scene)
         o, d = random_rays(512, seed=24)
         alive = jnp.arange(512) % 5 != 0
         ref = closest_hit(flat, static, o, d)
-        got = closest_hit(flat, static, o, d, alive=alive, traversal="interpret")
+        got = closest_hit(flat, static, o, d, alive=alive, traversal="kernel")
         live = np.asarray(alive)
         assert (np.asarray(got.tri)[~live] == -1).all()
         for field in ("geom", "tri", "point", "normal", "uv"):
@@ -123,7 +123,7 @@ class TestOcclusion:
                                   o, d, jnp.full((512,), DEAD_T), **_kargs(static))
         assert not np.asarray(got).any()
 
-    def test_pre_occluded_and_disabled_lanes(self):
+    def test_pre_occluded_and_disabled_lanes(self, kernel_walk):
         """occlusion_test on a scene with walls and a mesh: lanes an
         analytic geom already blocks stay blocked, disabled lanes are never
         traced, and the kernel path equals the XLA path lane for lane."""
@@ -139,7 +139,7 @@ class TestOcclusion:
         enabled = jnp.arange(512) % 3 != 0
         ref = occlusion_test(flat, static, ori, dirn, des, enabled=enabled)
         got = occlusion_test(flat, static, ori, dirn, des, enabled=enabled,
-                             traversal="interpret")
+                             traversal="kernel")
         np.testing.assert_array_equal(np.asarray(got), np.asarray(ref))
         analytic = occlusion_test(flat, static, ori, dirn, des,
                                   enabled=jnp.zeros((512,), bool))
@@ -153,14 +153,14 @@ class TestPlatformChoice:
     @pytest.mark.parametrize(
         "choice,platform,want",
         [("auto", "cpu", "xla"), ("auto", "gpu", "kernel"), ("xla", "gpu", "xla"),
-         ("xla", "cpu", "xla"), ("interpret", "cpu", "interpret")],
+         ("xla", "cpu", "xla")],
     )
     def test_resolve(self, choice, platform, want):
         assert resolve_traversal(choice, platform) == want
 
     @pytest.mark.parametrize(
         "choice,platform",
-        [("kernel", "cpu"), ("interpret", "gpu"), ("packets", "gpu")],
+        [("kernel", "cpu"), ("interpret", "cpu"), ("interpret", "gpu"), ("packets", "gpu")],
     )
     def test_refused(self, choice, platform):
         with pytest.raises(ValueError):
